@@ -3,8 +3,8 @@ import sys
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu.trees import export_svg, parse_newick
-from libpll2_tpu.utils import show_tree_ascii
+from libpll2_jax.trees import export_svg, parse_newick
+from libpll2_jax.utils import show_tree_ascii
 
 NEWICK = ("((t0:0.10,t1:0.22):0.05,(t2:0.30,(t3:0.12,t4:0.15):0.20):0.10,"
           "t5:0.40);")

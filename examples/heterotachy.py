@@ -5,7 +5,7 @@ a 4-taxon unrooted tree).
 Two equivalent APIs are shown:
   1. the reference client pattern: one update_prob_matrices call per
      branch class on the step-by-step Partition;
-  2. the TPU-native fused engine: TreeEngine(edge_params=[...]) computes
+  2. the fused engine: TreeEngine(edge_params=[...]) computes
      every edge's P-matrix from its own model in one program.
 """
 import sys
@@ -14,9 +14,9 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import create_operations, parse_newick, traverse
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.trees import create_operations, parse_newick, traverse
 
 NEWICK = "((A:0.2,B:0.3):0.1,(C:0.1,D:0.4):0.2);"
 SEQS = {"A": "CTGAGCTGGGGAAGGCTGAACGCTA", "B": "CTGAGCTGGGAAAGACTGAACGCTA",

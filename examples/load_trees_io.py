@@ -11,12 +11,12 @@ import tempfile
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.io.phylip import parse_phylip
-from libpll2_tpu.trees import (export_newick, export_newick_rooted,
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.io.phylip import parse_phylip
+from libpll2_jax.trees import (export_newick, export_newick_rooted,
                                parse_newick, parse_newick_rooted, traverse)
-from libpll2_tpu.utils.output import show_tree_ascii
+from libpll2_jax.utils.output import show_tree_ascii
 
 UNROOTED = ("((A:0.1,B:0.2):0.05,(C:0.3,D:0.1):0.07,E:0.15);")
 ROOTED = ("(((A:0.1,B:0.2):0.05,C:0.3):0.02,(D:0.1,E:0.15):0.08);")

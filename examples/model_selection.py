@@ -11,9 +11,9 @@ import time
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu.modelselect import select_dna_model
-from libpll2_tpu.trees import random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax.modelselect import select_dna_model
+from libpll2_jax.trees import random_utree
+from libpll2_jax.utils import simulate_alignment
 
 
 def main(seed=7):

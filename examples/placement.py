@@ -13,10 +13,10 @@ import time
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu import EdgePlacer
-from libpll2_tpu.trees import (export_newick, parse_newick, prune_tip,
+from libpll2_jax import EdgePlacer
+from libpll2_jax.trees import (export_newick, parse_newick, prune_tip,
                                random_utree)
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax.utils import simulate_alignment
 
 FREQS = [0.3, 0.2, 0.2, 0.3]
 SUBST = [1.0, 2.5, 0.8, 1.1, 2.5, 1.0]
@@ -57,7 +57,7 @@ def main(seed=11):
 
     # jplace v3 interchange output (consumed by gappa/iTOL)
     import json
-    from libpll2_tpu.placement import to_jplace
+    from libpll2_jax.placement import to_jplace
     jp = to_jplace(placer, stream, top_k=3)
     print(f"[{time.time()-t0:5.1f}s] jplace: {len(jp['placements'])} "
           f"queries over {jp['tree'].count('{')} annotated edges")

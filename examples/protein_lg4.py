@@ -4,12 +4,12 @@ import sys
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.models import (AA_MODEL_NAMES, load_aa_model,
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.models import (AA_MODEL_NAMES, load_aa_model,
                                 load_mixture_model)
-from libpll2_tpu.trees import random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax.trees import random_utree
+from libpll2_jax.utils import simulate_alignment
 
 
 def main():
@@ -40,7 +40,7 @@ def main():
     # LG4X: one rate matrix per Gamma category, params_indices [0, 1, 2, 3]
     part = build(4)
     load_mixture_model(part, "lg4x")
-    from libpll2_tpu.trees import create_operations, traverse
+    from libpll2_jax.trees import create_operations, traverse
     trav = traverse(tree.vroot)
     ops, branches, pmat_idx = create_operations(trav)
     part.update_prob_matrices([0, 1, 2, 3], pmat_idx, branches)

@@ -9,9 +9,9 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import parse_newick_rooted, rtree
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.trees import parse_newick_rooted, rtree
 
 NEWICK = "((A:0.15,B:0.25):0.10,(C:0.20,(D:0.05,E:0.30):0.15):0.05);"
 SEQS = {"A": "CTGAGCTGGGGAAGGCTGAACGCTATTAGC",

@@ -15,9 +15,9 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import parse_newick_rooted, rtree
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.trees import parse_newick_rooted, rtree
 
 NEWICK = "((A:0.1,B:0.2):0.1,(C:0.1,(D:0.1,E:0.1):0.2):0.15);"
 # degenerate characters exercise the mask decoding both ways

@@ -10,11 +10,11 @@ sys.path.insert(0, ".")
 
 import jax
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.parallel import make_mesh, shard_partition
-from libpll2_tpu.trees import random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.parallel import make_mesh, shard_partition
+from libpll2_jax.trees import random_utree
+from libpll2_jax.utils import simulate_alignment
 
 
 def main():

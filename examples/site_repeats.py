@@ -5,10 +5,10 @@ import sys
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import create_operations, random_utree, traverse
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.trees import create_operations, random_utree, traverse
+from libpll2_jax.utils import simulate_alignment
 
 
 def build(tree, headers, seqs, repeats):

@@ -5,13 +5,13 @@ import sys
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.parsimony import FastParsimony
-from libpll2_tpu.parsimony.stepwise import fastparsimony_stepwise
-from libpll2_tpu.trees import export_newick, random_utree
-from libpll2_tpu.trees.utree import reset_template_indices
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.parsimony import FastParsimony
+from libpll2_jax.parsimony.stepwise import fastparsimony_stepwise
+from libpll2_jax.trees import export_newick, random_utree
+from libpll2_jax.trees.utree import reset_template_indices
+from libpll2_jax.utils import simulate_alignment
 
 
 def main(seed=42):

@@ -4,9 +4,9 @@ import sys
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import load_fasta, maps
-from libpll2_tpu.trees import parse_newick, random_alignment, random_utree
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import load_fasta, maps
+from libpll2_jax.trees import parse_newick, random_alignment, random_utree
 
 
 def main(msa=None, nwk=None):

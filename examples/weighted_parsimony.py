@@ -10,11 +10,11 @@ sys.path.insert(0, ".")
 
 import numpy as np
 
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.parsimony import Parsimony
-from libpll2_tpu.trees import parse_newick_rooted, rtree
-from libpll2_tpu.trees.rtree import create_pars_buildops, create_pars_recops
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.parsimony import Parsimony
+from libpll2_jax.trees import parse_newick_rooted, rtree
+from libpll2_jax.trees.rtree import create_pars_buildops, create_pars_recops
 
 NEWICK = ("((((A:1,B:1)n1:1,(C:1,D:1)n2:1)n5:1,(E:1,F:1)n3:1)n6:1,"
           "(G:1,H:1)n4:1)root;")

@@ -4,7 +4,7 @@ Each invocation is one process of an N-process run:
 
     python mh_worker.py <process_id> <n_processes> <port> <devices_per_proc>
 
-It wires itself into the process group via libpll2_tpu.parallel.multihost,
+It wires itself into the process group via libpll2_jax.parallel.multihost,
 builds its column block of a DETERMINISTIC global problem (seeded alignment
 + ladder tree, identical in every process), assembles the global sharded
 partition, and prints one JSON line with logL / d1 / d2 from the single
@@ -51,7 +51,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
 
-    from libpll2_tpu.parallel import multihost
+    from libpll2_jax.parallel import multihost
     multihost.initialize(coordinator_address=f"127.0.0.1:{port}",
                          num_processes=nproc, process_id=pid,
                          platform="cpu")
@@ -59,10 +59,10 @@ def main():
     jax.config.update("jax_enable_x64", True)
     import numpy as np
 
-    from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-    from libpll2_tpu.io import maps
-    from libpll2_tpu.parallel import shard_partition
-    from libpll2_tpu.trees import parse_newick
+    from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+    from libpll2_jax.io import maps
+    from libpll2_jax.parallel import shard_partition
+    from libpll2_jax.trees import parse_newick
 
     labels, seqs, newick, subst, freqs = build_global_problem()
     tree = parse_newick(newick, unroot=True)
@@ -104,15 +104,15 @@ def main():
     eng_prs = TreeEngine(part_prs, tree)
     lk_prs, d1_prs, d2_prs = eng_prs.newton_step()
 
-    # multi-process SITE REPEATS (VERDICT r3 weak #6): dense-fused
+    # multi-process SITE REPEATS: dense-fused
     # sharded repeats — per-device pooled partitions with LOCAL class
     # tables, fused-kernel evaluation, logL/d1/d2 psums. Each process
     # builds one partition per device it owns over that device's column
     # slice of the same global alignment.
     import jax.numpy as jnp
 
-    from libpll2_tpu.parallel import ShardedRepeatsEngine
-    from libpll2_tpu.parallel.sharding import owned_shards
+    from libpll2_jax.parallel import ShardedRepeatsEngine
+    from libpll2_jax.parallel.sharding import owned_shards
 
     n_local = owned_shards(mesh)
     n_global = len(mesh.devices.flat)
@@ -138,16 +138,16 @@ def main():
     # multi-PROCESS repeats topology search: one batched SPR round over
     # the 2-process sharded repeats engine (SPMD candidate dispatch +
     # psum; winner applied identically per rank)
-    from libpll2_tpu.search import TreeSearch as _TS
+    from libpll2_jax.search import TreeSearch as _TS
     s_rep = _TS(None, tree, engine=eng_r)
     lk_rs, acc_rs = s_rep.spr_round_batched(radius=2)
 
-    # multi-process STREAMED SPR round (VERDICT r4 item 2): the schedule
+    # multi-process STREAMED SPR round: the schedule
     # build is deterministic host work replicated per rank; the scoring
     # body runs per shard with ONE psum of the per-candidate logL sums.
     # Candidate scores must be bit-identical across process counts.
-    from libpll2_tpu.ops import spr_stream
-    from libpll2_tpu.search import TreeSearch
+    from libpll2_jax.ops import spr_stream
+    from libpll2_jax.search import TreeSearch
 
     s = TreeSearch(None, tree, engine=eng)
     assert s._streamed_eligible(), \
@@ -164,11 +164,11 @@ def main():
     # application replicated per rank)
     best_stream, acc_stream = s.spr_round_streamed(radius=3)
 
-    # multi-process PARTITIONED analysis (VERDICT r4 weak #6): two
+    # multi-process PARTITIONED analysis: two
     # site-sharded partitions over the same mesh, joint linked Newton
     # (summed d1/d2, one update applied to every engine) — the
     # consumers' MPI partitioned layout, process-count invariant
-    from libpll2_tpu.partitioned import PartitionedEngine
+    from libpll2_jax.partitioned import PartitionedEngine
     rng2 = np.random.default_rng(21)
     seqs2 = ["".join(rng2.choice(list("ACGT"), size=N_SITES))
              for _ in range(len(labels))]
@@ -201,7 +201,7 @@ def main():
 
 
 def _stream_edges(tree):
-    from libpll2_tpu.search import _internal_edges
+    from libpll2_jax.search import _internal_edges
     return list(_internal_edges(tree))
 
 

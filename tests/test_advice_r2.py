@@ -1,4 +1,4 @@
-"""Regression tests for the round-1 advisor findings (ADVICE.md):
+"""Regression tests for the round-1 review findings:
 
   * repeats schedule cache key must include matrix/scaler indices;
   * set_tip_clv on a repeats partition resets that tip's class mapping;
@@ -9,11 +9,11 @@
 import numpy as np
 import pytest
 
-from libpll2_tpu import Partition, checkpoint, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import compress, maps
-from libpll2_tpu.trees import create_operations, random_utree, traverse
-from libpll2_tpu.utils.simulate import simulate_alignment
+from libpll2_jax import Partition, checkpoint, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import compress, maps
+from libpll2_jax.trees import create_operations, random_utree, traverse
+from libpll2_jax.utils.simulate import simulate_alignment
 
 N_TAXA = 12
 N_SITES = 200
@@ -128,10 +128,10 @@ def test_execution_path_introspection():
     """TreeEngine.execution_path names the selected compute path — the
     eligibility downgrades are silent, so this is the diagnostic."""
     import jax.numpy as jnp
-    from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-    from libpll2_tpu.io import maps
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils import simulate_alignment
+    from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+    from libpll2_jax.io import maps
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils import simulate_alignment
 
     tree = random_utree([f"t{i}" for i in range(8)], seed=61)
     headers, seqs = simulate_alignment(tree, 256, [0.25] * 4,
@@ -162,5 +162,7 @@ def test_execution_path_introspection():
                       pallas="interpret").execution_path \
         == "repeats-dense-fused"
     assert TreeEngine(build(jnp.float32, repeats=True), tree,
-                      pallas="pool-interpret").execution_path \
-        == "pool-pallas"
+                      pallas="pool").execution_path == "pool"
+    with pytest.raises(C.PllError):
+        TreeEngine(build(jnp.float32, repeats=True), tree,
+                   pallas="pool-interpret")

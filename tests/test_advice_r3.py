@@ -1,24 +1,21 @@
-"""Regression tests for the round-2 advisor findings (ADVICE.md):
+"""Regression tests for the round-2 review findings:
 
-  * one-hot frequency matmuls pin precision=HIGHEST (bf16-pass rounding
-    on the TPU f32 fast path) and bootstrap replicate logLs are computed
-    host-side in float64;
-  * the fused plane-layout kernel guards its scalar-prefetch SMEM
-    footprint (flat P-matrix + op table) and falls back to the
-    row-layout kernel for large trees;
+  * bootstrap replicate logLs are computed host-side in float64;
+  * the fused kernel reads only the P-matrix rows its op table names, so
+    a large P-matrix table (many edges or edge classes) changes nothing;
   * make_loglikelihood_fn rejects a subst_template with an empty class
     (previously a silent NaN warm start).
 """
 import numpy as np
 import pytest
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.bootstrap import bootstrap_loglikelihoods
-from libpll2_tpu.io import maps
-from libpll2_tpu.optimize import make_loglikelihood_fn
-from libpll2_tpu.trees import random_utree
-from libpll2_tpu.utils.simulate import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.bootstrap import bootstrap_loglikelihoods
+from libpll2_jax.io import maps
+from libpll2_jax.optimize import make_loglikelihood_fn
+from libpll2_jax.trees import random_utree
+from libpll2_jax.utils.simulate import simulate_alignment
 
 FREQS = [0.3, 0.25, 0.2, 0.25]
 SUBST = [1.2, 3.0, 0.8, 1.1, 2.6, 1.0]
@@ -51,37 +48,34 @@ def test_bootstrap_logls_are_float64_host_sums():
     assert logls.dtype == np.float64
 
 
-def test_fused_kernel_smem_guard_falls_back_to_row_layout():
-    from libpll2_tpu.ops import pallas_fused as pf
-    # E*R*s*s*4 + table bytes > SMEM_BUDGET -> auto layout must pick the
-    # row-layout kernel (P-matrix in VMEM), and numbers must match the
-    # plane kernel bit for bit on the same schedule
-    n_sites = 1024                       # plane-eligible width
+def test_fused_kernel_large_pmatrix_table():
+    from libpll2_jax.ops import pallas_fused as pf
+    # a P-matrix table far larger than the tree needs (identity rows
+    # beyond the real edges): the kernel must produce the same root rows
+    # bit for bit as with the exact-size table
+    n_sites = 256
     tree, part = _setup(n_taxa=8, n_sites=n_sites, prob_matrices_factor=1)
-    from libpll2_tpu.trees import create_operations, traverse
+    from libpll2_jax.trees import create_operations, traverse
     ops, branches, pmat_idx = create_operations(traverse(tree.vroot))
     table, n_slots = pf.pack_fused_schedule(
         ops, part.tips, (tree.vroot.clv_index, tree.vroot.back.clv_index))
     assert table is not None
     part.update_prob_matrices([0] * 4, list(pmat_idx), list(branches))
-    big_e = pf.SMEM_BUDGET // (4 * 16 * 4) + 8
+    big_e = 4096
     pm_small = np.asarray(part.pmatrix, np.float32)
     pm_big = np.zeros((big_e, 4, 4, 4), np.float32)
     pm_big[:pm_small.shape[0]] = pm_small
     pm_big[pm_small.shape[0]:] = np.eye(4, dtype=np.float32)
-    codes = pf.tip_code_matrix(part, pad_to=n_sites)
+    codes = pf.tip_code_matrix(part)
     import jax.numpy as jnp
     kw = dict(rates=4, states=4, n_slots=n_slots,
               threshold=2.0 ** -32, factor=2.0 ** 32, interpret=True)
-    smem_bytes = (big_e * 4 * 16 + table.shape[0] * 8) * 4
-    assert smem_bytes > pf.SMEM_BUDGET
-    out_auto = pf.fused_traversal(jnp.asarray(codes),
-                                  jnp.asarray(pm_big),
-                                  jnp.asarray(table), **kw)
-    out_plane = pf.fused_traversal(jnp.asarray(codes),
+    out_big = pf.fused_traversal(jnp.asarray(codes), jnp.asarray(pm_big),
+                                 jnp.asarray(table), **kw)
+    out_small = pf.fused_traversal(jnp.asarray(codes),
                                    jnp.asarray(pm_small),
-                                   jnp.asarray(table), planes=True, **kw)
-    for a, b in zip(out_auto, out_plane):
+                                   jnp.asarray(table), **kw)
+    for a, b in zip(out_big, out_small):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 

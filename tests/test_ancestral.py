@@ -54,10 +54,10 @@ def test_site_rate_posteriors():
     posterior = softmax over log(w_r) + lnl_r(s). Also checks fast and
     pooled engines agree."""
     import jax.numpy as jnp
-    from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-    from libpll2_tpu.io import maps
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils import simulate_alignment
+    from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+    from libpll2_jax.io import maps
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils import simulate_alignment
 
     FREQS = [0.3, 0.2, 0.2, 0.3]
     SUBST = [1, 2.5, 0.8, 1.1, 2.5, 1]

@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import (create_operations, random_alignment,
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.trees import (create_operations, random_alignment,
                                random_utree, traverse)
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
@@ -114,8 +114,8 @@ def test_asc_bias_derivatives(setup, asc, ref_attr, needs_weights):
 def test_asc_bias_through_fused_engine(asc, ref_attr, needs_weights):
     """The fused TreeEngine must apply the same corrections as the
     step-by-step Partition path (logL and Newton derivatives)."""
-    from libpll2_tpu import TreeEngine
-    from libpll2_tpu.trees import random_utree
+    from libpll2_jax import TreeEngine
+    from libpll2_jax.trees import random_utree
 
     headers, seqs = random_alignment(20, 150, seed=5)
     tree = random_utree(headers, seed=5)
@@ -174,7 +174,7 @@ def test_stamatakis_with_scaled_synthetic_columns():
     """Deep caterpillar forces CLV scaling on the synthetic all-state-k
     columns; the reference adds the scaler-undo term UNWEIGHTED there
     (likelihood.c:95-101) — must match with state weights > 1."""
-    from libpll2_tpu.trees import parse_newick
+    from libpll2_jax.trees import parse_newick
     # long branches: the synthetic invariant columns decay only ~P[k,k]
     # per level, so they need t large enough to underflow 2^-256
     # scaling needs ALL rate categories below threshold, so use a large
@@ -231,7 +231,7 @@ def test_stamatakis_with_scaled_synthetic_columns():
 def test_rng_high_bit_seeds_match_reference():
     """Seeds >= 2^31 exercise glibc's signed truncating division."""
     import ctypes as ct
-    from libpll2_tpu.utils.rng import GlibcRandom
+    from libpll2_jax.utils.rng import GlibcRandom
     lib = oracle.load()
     lib.pll_random_create.restype = ct.c_void_p
     lib.pll_random_create.argtypes = [ct.c_uint]

@@ -4,12 +4,12 @@ for plain and Lewis-asc engines, plain and site-repeats storage."""
 import numpy as np
 import pytest
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.bootstrap import bootstrap_loglikelihoods
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.bootstrap import bootstrap_loglikelihoods
+from libpll2_jax.io import maps
+from libpll2_jax.trees import random_utree
+from libpll2_jax.utils import simulate_alignment
 
 N_TAXA, N_SITES = 16, 384
 

@@ -4,11 +4,11 @@ must reach the same optimum as the host-looped per-edge Newton loop
 import numpy as np
 import pytest
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.optimize import newton_optimize_branches, newton_smooth_all
-from libpll2_tpu.trees import random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.optimize import newton_optimize_branches, newton_smooth_all
+from libpll2_jax.trees import random_utree
+from libpll2_jax.utils import simulate_alignment
 
 FREQS = [0.3, 0.2, 0.2, 0.3]
 SUBST = [1.2, 2.5, 0.8, 1.1, 2.0, 1.0]

@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.io.compress import compress_site_patterns
-from libpll2_tpu.trees import random_alignment, random_utree
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.io.compress import compress_site_patterns
+from libpll2_jax.trees import random_alignment, random_utree
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="reference not available")

@@ -7,10 +7,10 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Operation, Partition, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.ops import eigen as ops_eigen
+from libpll2_jax import Operation, Partition, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.ops import eigen as ops_eigen
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="reference not available")
@@ -375,8 +375,8 @@ def test_set_tip_states_batch_matches_per_tip():
     """set_tip_states_batch is bit-identical to per-tip installs (it
     exists because one eager device update per tip costs seconds of
     dispatch overhead at 1000 taxa)."""
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils import simulate_alignment
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils import simulate_alignment
 
     tree = random_utree([f"t{i}" for i in range(12)], seed=3)
     h, s = simulate_alignment(tree, 200, [0.25] * 4, [1, 2, 1, 1, 2, 1],

@@ -12,13 +12,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from libpll2_tpu import (Partition, TreeEngine, compute_gamma_cats,
+from libpll2_jax import (Partition, TreeEngine, compute_gamma_cats,
                          loglikelihood_df64)
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.ops import df64
-from libpll2_tpu.trees import parse_newick, random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.ops import df64
+from libpll2_jax.trees import parse_newick, random_utree
+from libpll2_jax.utils import simulate_alignment
 
 
 def test_primitives_vs_fp64():
@@ -112,7 +112,7 @@ def test_df64_rejects_scalerless_inner_node():
     be ~16*ln2 per dropped count, so the certified evaluation REFUSES
     such op lists instead of returning an inflated logL (review
     finding, round 5)."""
-    from libpll2_tpu.trees.utree import SCALE_BUFFER_NONE
+    from libpll2_jax.trees.utree import SCALE_BUFFER_NONE
 
     n = 64
     text = f"t{n-1}:0.3"

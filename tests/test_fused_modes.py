@@ -1,12 +1,12 @@
-"""Fused-kernel support for the two attribute modes VERDICT r2 flagged as
+"""Fused-kernel support for the two attribute modes that once were
 silent fast-path exclusions:
 
   * per-rate scalers (PLL_ATTRIB_RATE_SCALERS, reference
     core_partials.c:760-771 / core_likelihood.c:442-489): each rate block
-    underflow-scales independently, one scaler plane per rate;
+    underflow-scales independently, one scaler row per rate;
   * raw-probability tips (pll_set_tip_clv, reference pll.c:959-1024):
-    treated as ordinary CLV rows streamed from HBM, every other tip keeps
-    the packed bitmask decode.
+    treated as ordinary CLV rows streamed from device memory, every other
+    tip keeps the packed bitmask decode.
 
 All comparisons run the fused kernel in interpret mode on CPU against the
 XLA path (which is itself oracle-validated in test_core_m0 /
@@ -17,11 +17,11 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import parse_newick, random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.trees import parse_newick, random_utree
+from libpll2_jax.utils import simulate_alignment
 
 FREQS = [0.3, 0.2, 0.2, 0.3]
 SUBST = [1, 2, 1, 1, 2, 1]
@@ -81,14 +81,14 @@ def test_fused_rate_scalers_matches_xla():
                 np.asarray(p_x.scale_buffer[idx]))
 
 
-def test_fused_rate_scalers_plane_vs_row_bit_identical():
-    """Both kernel layouts must agree bit for bit in per-rate mode."""
-    from libpll2_tpu.ops import pallas_fused as pf
-    from libpll2_tpu.ops import pmatrix as op_pm
-    from libpll2_tpu.trees import create_operations, traverse
+def test_fused_rate_scalers_tile_bit_identical():
+    """Every site tile must give bit-identical results in per-rate mode."""
+    from libpll2_jax.ops import pallas_fused as pf
+    from libpll2_jax.ops import pmatrix as op_pm
+    from libpll2_jax.trees import create_operations, traverse
 
     tree = _caterpillar(60)
-    sites = 1024
+    sites = 256
     headers, seqs = simulate_alignment(tree, sites, FREQS, SUBST,
                                        alpha=0.9, seed=11)
     part = _build(tree, headers, seqs, sites, rate_scalers=True)
@@ -110,13 +110,13 @@ def test_fused_rate_scalers_plane_vs_row_bit_identical():
     kw = dict(rates=4, states=4, n_slots=n_slots,
               threshold=part.scale_threshold, factor=part.scale_factor,
               interpret=True, rate_scalers=True)
-    plane = pf.fused_traversal(codes, pm, jnp.asarray(table),
-                               planes=True, **kw)
-    row = pf.fused_traversal(codes, pm, jnp.asarray(table),
-                             planes=False, **kw)
-    assert plane[2].shape == (4, sites)
-    assert int(np.asarray(plane[2]).sum()) > 0
-    for a, b in zip(plane, row):
+    small = pf.fused_traversal(codes, pm, jnp.asarray(table), tile=32,
+                               **kw)
+    large = pf.fused_traversal(codes, pm, jnp.asarray(table), tile=128,
+                               **kw)
+    assert small[2].shape == (4, sites)
+    assert int(np.asarray(small[2]).sum()) > 0
+    for a, b in zip(small, large):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
@@ -148,7 +148,7 @@ def test_fused_tip_clv_matches_xla():
 
 
 def test_fused_tip_clv_aa_multiple_tips_unaligned():
-    """20-state row-layout kernel with TWO raw tips at a non-lane-aligned
+    """20-state kernel with TWO raw tips at a non-tile-aligned
     site count (internal padding): logL must match XLA bit for bit."""
     tree = random_utree([f"t{i}" for i in range(8)], seed=3)
     sites = 200
@@ -228,8 +228,8 @@ def test_fused_tip_clv_membership_change_raises():
 
 def test_fused_rate_scalers_evaluate_topologies():
     """Batched multi-topology scoring (SPR/NNI rounds) in per-rate mode."""
-    from libpll2_tpu.trees import create_operations, traverse
-    from libpll2_tpu.trees import moves
+    from libpll2_jax.trees import create_operations, traverse
+    from libpll2_jax.trees import moves
 
     tree = random_utree([f"t{i}" for i in range(10)], seed=2)
     headers, seqs = simulate_alignment(tree, 128, FREQS, SUBST,
@@ -264,7 +264,7 @@ def test_fused_rate_scalers_evaluate_topologies():
 def test_fused_rate_scalers_sharded_mesh():
     """Per-rate scalers under an 8-device site-sharded mesh (shard_map):
     logL/d1/d2 must match the unsharded XLA result."""
-    from libpll2_tpu.parallel import make_mesh, shard_partition
+    from libpll2_jax.parallel import make_mesh, shard_partition
 
     tree = _caterpillar(40)
     sites = 1024
@@ -285,36 +285,81 @@ def test_fused_rate_scalers_sharded_mesh():
     np.testing.assert_allclose(ns, nx, rtol=1e-5, atol=1e-3)
 
 
-def test_mxu_mode_accuracy_ordering():
-    """20-state MXU precision modes (ops/pallas_fused._fused_kernel):
-    'split' (hi/lo bf16, K-stacked single dot) must land within fp32
-    distance of the fp64-class XLA answer, 'highest' even closer, and
-    'bf16' visibly looser — the documented accuracy ladder. Also guards
-    the bit-masked split against XLA's convert-folding rewrite (a plain
-    arithmetic hi/lo split silently degrades to bf16 when fused into
-    the jitted program: split_bf16 docstring)."""
+def test_fused_20_states_fp32_accuracy():
+    """20 states padded to the kernel's 32-row tensors: the exact-fp32 FMA
+    contraction must land within fp32 distance of the fp64 XLA answer
+    (the padded rows and columns are zero and must contribute nothing)."""
     tree = random_utree([f"t{i}" for i in range(24)], seed=5)
     headers, seqs = simulate_alignment(
         tree, 512, np.full(20, 0.05), np.ones(190), alpha=0.9, seed=5)
 
-    ref = TreeEngine(_build(tree, headers, seqs, 512, states=20), tree,
-                     pallas=False).loglikelihood()
-    errs = {}
-    for mode in ("split", "bf16", "highest"):
-        eng = TreeEngine(_build(tree, headers, seqs, 512, states=20),
-                         tree, pallas="interpret", mxu=mode)
-        assert eng.execution_path == "fused"
-        errs[mode] = abs(eng.loglikelihood() - ref)
-    assert errs["highest"] <= abs(ref) * 1e-6
-    assert errs["split"] <= abs(ref) * 1e-5
-    # split must clearly beat raw bf16 (475x in theory; demand 5x)
-    assert errs["split"] * 5 < errs["bf16"] + abs(ref) * 1e-9
+    def build(dtype):
+        part = _build(tree, headers, seqs, 512, states=20)
+        if dtype == jnp.float32:
+            return part
+        by = dict(zip(headers, seqs))
+        p64 = Partition(tree.tip_count, tree.inner_count, 20, 512, 1,
+                        tree.edge_count, 4, tree.inner_count,
+                        dtype=jnp.float64)
+        for t in tree.tips():
+            p64.set_tip_states(t.clv_index, maps.map_aa, by[t.label])
+        p64.set_frequencies(0, np.full(20, 0.05))
+        p64.set_subst_params(0, np.ones(190))
+        p64.set_category_rates(compute_gamma_cats(0.9, 4))
+        return p64
+
+    ref = TreeEngine(build(jnp.float64), tree, pallas=False,
+                     level_schedule=False).loglikelihood()
+    eng = TreeEngine(build(jnp.float32), tree, pallas="interpret")
+    assert eng.execution_path == "fused"
+    assert abs(eng.loglikelihood() - ref) <= abs(ref) * 1e-6
 
 
-def test_mxu_mode_validation():
+def test_fused_rate_scalers_many_categories_aa():
+    """Per-rate scalers at 10 categories and 20 states: the kernel keeps
+    one scaler row per rate, with no category bound."""
+    tree = _caterpillar(30)
+    headers, seqs = simulate_alignment(
+        tree, 96, np.full(20, 0.05), np.ones(190), alpha=0.5, seed=4)
+    by = dict(zip(headers, seqs))
+
+    def build():
+        part = Partition(tree.tip_count, tree.inner_count, 20, 96, 1,
+                         tree.edge_count, 10, tree.inner_count,
+                         dtype=jnp.float32, rate_scalers=True)
+        for t in tree.tips():
+            part.set_tip_states(t.clv_index, maps.map_aa, by[t.label])
+        part.set_frequencies(0, np.full(20, 0.05))
+        part.set_subst_params(0, np.ones(190))
+        part.set_category_rates(compute_gamma_cats(0.5, 10))
+        return part
+
+    e_f = TreeEngine(build(), tree, pallas="interpret")
+    assert e_f.execution_path == "fused"
+    e_x = TreeEngine(build(), tree, pallas=False)
+    np.testing.assert_allclose(e_f.loglikelihood(), e_x.loglikelihood(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["levels-kernel", "levels-interpret",
+                                  "pool-interpret", "fast"])
+def test_removed_pallas_modes_raise(mode):
+    """The per-level and pooled-repeats kernels are gone: asking for them
+    (or for any unknown mode) raises instead of silently downgrading."""
     tree = random_utree([f"t{i}" for i in range(6)], seed=5)
     headers, seqs = simulate_alignment(
         tree, 128, FREQS, SUBST, alpha=0.9, seed=5)
     part = _build(tree, headers, seqs, 128)
     with pytest.raises(C.PllError):
-        TreeEngine(part, tree, mxu="fast")
+        TreeEngine(part, tree, pallas=mode)
+
+
+def test_pallas_true_off_gpu_raises():
+    """pallas=True compiles the kernel for a GPU; on the CPU backend it
+    raises rather than falling back to XLA."""
+    tree = random_utree([f"t{i}" for i in range(6)], seed=5)
+    headers, seqs = simulate_alignment(
+        tree, 128, FREQS, SUBST, alpha=0.9, seed=5)
+    part = _build(tree, headers, seqs, 128)
+    with pytest.raises(C.PllError, match="GPU"):
+        TreeEngine(part, tree, pallas=True)

@@ -12,10 +12,10 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Operation, Partition, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import create_operations, random_utree, traverse
+from libpll2_jax import Operation, Partition, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.trees import create_operations, random_utree, traverse
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="reference not available")
@@ -153,11 +153,11 @@ def test_fuzz_config_vs_oracle(seed):
 @pytest.mark.parametrize("seed", range(8))
 def test_fuzz_engine_paths(seed):
     """Random configurations through every ELIGIBLE engine execution
-    path — scan, levels, fused (interpret), pool, pool-pallas
-    (interpret), repeats-dense-fused — must agree on logL and d1/d2
+    path — scan, levels, fused (interpret), pool (fp64 and fp32),
+    repeats-dense-fused — must agree on logL and d1/d2
     within dtype-justified tolerances."""
     import jax.numpy as jnp
-    from libpll2_tpu import Partition, TreeEngine
+    from libpll2_jax import Partition, TreeEngine
 
     rng = np.random.default_rng(3000 + seed)
     n = int(rng.integers(6, 16))
@@ -194,8 +194,8 @@ def test_fuzz_engine_paths(seed):
         "levels": TreeEngine(build(), tree, pallas=False),
         "fused": TreeEngine(build(jnp.float32), tree, pallas="interpret"),
         "pool": TreeEngine(build(repeats=True), tree, pallas=False),
-        "pool-pallas": TreeEngine(build(jnp.float32, repeats=True), tree,
-                                  pallas="pool-interpret"),
+        "pool32": TreeEngine(build(jnp.float32, repeats=True), tree,
+                             pallas="pool"),
         "rdf": TreeEngine(build(jnp.float32, repeats=True), tree,
                           pallas="interpret"),
     }
@@ -224,9 +224,9 @@ def test_fuzz_stream_placement(seed):
     """Random (alphabet, rate cats, alpha, branch regime, gappy queries):
     the streaming placer's per-edge logL surface must match the
     full-traversal place() path for every edge."""
-    from libpll2_tpu.placement import EdgePlacer
-    from libpll2_tpu.trees import export_newick, parse_newick, prune_tip
-    from libpll2_tpu.utils import simulate_alignment
+    from libpll2_jax.placement import EdgePlacer
+    from libpll2_jax.trees import export_newick, parse_newick, prune_tip
+    from libpll2_jax.utils import simulate_alignment
 
     rng = np.random.default_rng(7000 + seed)
     states = int(rng.choice([4, 4, 20]))

@@ -10,10 +10,10 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import create_operations, random_utree, traverse
-from libpll2_tpu.utils.simulate import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.trees import create_operations, random_utree, traverse
+from libpll2_jax.utils.simulate import simulate_alignment
 
 N_TAXA = 14
 N_SITES = 384   # 128-aligned for the fused-kernel eligibility check

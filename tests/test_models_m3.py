@@ -7,11 +7,11 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import load_fasta, maps
-from libpll2_tpu.models import (AA_MODEL_NAMES, aa_model, load_aa_model,
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import load_fasta, maps
+from libpll2_jax.models import (AA_MODEL_NAMES, aa_model, load_aa_model,
                                 load_mixture_model, mixture_model)
-from libpll2_tpu.trees import create_operations, parse_newick, traverse
+from libpll2_jax.trees import create_operations, parse_newick, traverse
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="reference not available")

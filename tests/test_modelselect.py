@@ -2,12 +2,12 @@
 empirical AA ranking recover the generating model on simulated data."""
 import numpy as np
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.modelselect import select_aa_model, select_dna_model
-from libpll2_tpu.models import aa_model
-from libpll2_tpu.trees import random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.modelselect import select_aa_model, select_dna_model
+from libpll2_jax.models import aa_model
+from libpll2_jax.trees import random_utree
+from libpll2_jax.utils import simulate_alignment
 
 
 def test_select_dna_model_recovers_hky():

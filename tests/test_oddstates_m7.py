@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import create_operations, random_utree, traverse
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.trees import create_operations, random_utree, traverse
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="reference not available")

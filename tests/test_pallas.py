@@ -1,21 +1,19 @@
-"""Pallas CLV kernel validation (interpret mode on CPU): exact equality
-with the XLA level path in fp32, including underflow-scaling cases.
-
-Two kernels are covered: the per-level kernel ('levels-interpret') and the
-single-pass whole-traversal kernel ('interpret', ops/pallas_fused.py)."""
+"""Fused traversal kernel validation (ops/pallas_fused.py, Pallas
+interpret mode on CPU): exact equality with the XLA level path in fp32,
+including underflow-scaling cases."""
 import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import parse_newick, random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.trees import parse_newick, random_utree
+from libpll2_jax.utils import simulate_alignment
 
 FREQS = [0.3, 0.2, 0.2, 0.3]
 SUBST = [1, 2, 1, 1, 2, 1]
 
-KERNELS = ["levels-interpret", "interpret"]
+KERNELS = ["interpret"]
 
 
 def _build(tree, headers, seqs, sites, states=4, rate_cats=4):
@@ -69,24 +67,18 @@ def test_pallas_matches_xla_with_scaling(kernel):
         p_xla.scale_buffer[:p_xla.scale_buffers]).sum())
     assert n_scaled > 0
     np.testing.assert_array_equal(lk_p, lk_x)
-    if kernel == "levels-interpret":
-        # per-level kernel materializes every scaler row
-        np.testing.assert_array_equal(
-            np.asarray(p_pl.scale_buffer[:p_pl.scale_buffers]),
-            np.asarray(p_xla.scale_buffer[:p_xla.scale_buffers]))
-    else:
-        # fused kernel materializes only the root edge rows
-        root = tree.vroot
-        for idx in (root.scaler_index, root.back.scaler_index):
-            if idx >= 0:
-                np.testing.assert_array_equal(
-                    np.asarray(p_pl.scale_buffer[idx]),
-                    np.asarray(p_xla.scale_buffer[idx]))
+    # fused kernel materializes only the root edge rows
+    root = tree.vroot
+    for idx in (root.scaler_index, root.back.scaler_index):
+        if idx >= 0:
+            np.testing.assert_array_equal(
+                np.asarray(p_pl.scale_buffer[idx]),
+                np.asarray(p_xla.scale_buffer[idx]))
 
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_pallas_matches_xla_20_states(kernel):
-    from libpll2_tpu.models import load_aa_model
+    from libpll2_jax.models import load_aa_model
     tree = random_utree([f"t{i}" for i in range(8)], seed=3)
     headers, seqs = simulate_alignment(tree, 256, [1 / 20] * 20,
                                        [1.0] * 190, alpha=1.0, seed=3)
@@ -123,9 +115,9 @@ def test_pallas_newton_matches_xla(kernel):
 def test_fused_evaluate_topologies_matches_scan():
     """The batched multi-topology scorer must agree between the fused
     kernel path and the XLA scan path for NNI-style candidates."""
-    from libpll2_tpu.trees import create_operations, traverse
-    from libpll2_tpu.trees import moves
-    from libpll2_tpu import constants as C
+    from libpll2_jax.trees import create_operations, traverse
+    from libpll2_jax.trees import moves
+    from libpll2_jax import constants as C
 
     tree = random_utree([f"t{i}" for i in range(10)], seed=2)
     headers, seqs = simulate_alignment(tree, 128, FREQS, SUBST,
@@ -190,7 +182,7 @@ def test_fused_loglikelihood_loop_matches_single():
 
 def test_fused_stays_fused_when_tip_clv_set():
     """Raw-probability tips (pll_set_tip_clv) stay on the fused path:
-    their f32 rows stream from HBM while every other tip keeps the
+    their f32 rows stream from device memory while every other tip keeps the
     bitmask decode (see tests/test_fused_modes.py for the full matrix)."""
     tree = random_utree([f"t{i}" for i in range(8)], seed=7)
     headers, seqs = simulate_alignment(tree, 128, FREQS, SUBST,
@@ -209,22 +201,21 @@ def test_fused_stays_fused_when_tip_clv_set():
                                rtol=1e-6)
 
 
-def test_fused_plane_layout_matches_row_layout():
-    """At sites % 1024 == 0 the fused kernel switches to the plane layout
-    (site axis viewed as [8, S/8] vreg planes); both layouts must produce
-    BIT-IDENTICAL root CLVs and scalers — same FMA order, different
-    register shapes. A scaling-stressed caterpillar keeps the scaler
-    semantics honest."""
-    from libpll2_tpu.ops import pallas_fused as pf
-    from libpll2_tpu.ops import pmatrix as op_pm
-    from libpll2_tpu.trees import create_operations, traverse
+def test_fused_tile_size_bit_identical():
+    """The kernel's site tile is a launch shape, not a semantic: root CLVs
+    and scalers must be BIT-IDENTICAL for every tile (each site's FMA
+    order is the same), including an unaligned width the wrapper pads.
+    A scaling-stressed caterpillar keeps the scaler semantics honest."""
+    from libpll2_jax.ops import pallas_fused as pf
+    from libpll2_jax.ops import pmatrix as op_pm
+    from libpll2_jax.trees import create_operations, traverse
 
     n = 60
     text = f"t{n-1}:0.1"
     for i in range(n - 2, 1, -1):
         text = f"(t{i}:0.1,{text}):0.1"
     tree = parse_newick(f"(t0:0.1,t1:0.1,{text});")
-    sites = 1024
+    sites = 200
     headers, seqs = simulate_alignment(tree, sites, FREQS, SUBST,
                                        alpha=0.9, seed=11)
     part = _build(tree, headers, seqs, sites)
@@ -247,21 +238,20 @@ def test_fused_plane_layout_matches_row_layout():
     kw = dict(rates=4, states=4, n_slots=n_slots,
               threshold=part.scale_threshold, factor=part.scale_factor,
               interpret=True)
-    plane = pf.fused_traversal(codes, pm, jnp.asarray(table),
-                               planes=True, **kw)
-    row = pf.fused_traversal(codes, pm, jnp.asarray(table),
-                             planes=False, **kw)
+    outs = [pf.fused_traversal(codes, pm, jnp.asarray(table), tile=t, **kw)
+            for t in (32, 64, 256)]
     # scaling must actually trigger for the comparison to mean anything
-    assert int(np.asarray(plane[2]).sum()) > 0
-    for a, b in zip(plane, row):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert int(np.asarray(outs[0][2]).sum()) > 0
+    assert outs[0][0].shape == (4, 4, sites)
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_fused_plane_layout_engine_end_to_end():
-    """Engine logL through the plane-layout dispatch (1024-site DNA)
-    agrees with the XLA path (the fused path's FMA order differs from
-    XLA's einsum by at most 1 ulp at this size; plane and row layouts
-    are bit-identical to each other, asserted above)."""
+    """Engine logL through the fused kernel at 1024-site DNA (many site
+    tiles) agrees with the XLA path (the fused path's FMA order differs
+    from XLA's einsum by at most 1 ulp at this size)."""
     tree = random_utree([f"t{i}" for i in range(16)], seed=9)
     headers, seqs = simulate_alignment(tree, 1024, FREQS, SUBST,
                                        alpha=0.7, seed=9)
@@ -276,7 +266,7 @@ def test_fused_plane_layout_engine_end_to_end():
 
 def test_fused_unaligned_sites():
     """Real alignments are never lane-aligned: at sites=999 the fused
-    kernel pads its tip-code matrix to the lane grain internally and the
+    kernel pads its tip-code matrix to the site tile internally and the
     engine slices the root rows back — logL, per-site output and a
     Newton loop must match the XLA scan path (and via it, the oracle)."""
     tree = random_utree([f"t{i}" for i in range(18)], seed=33)

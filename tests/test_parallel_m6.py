@@ -5,10 +5,10 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.parallel import make_mesh, shard_partition
-from libpll2_tpu.trees import parse_newick
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.parallel import make_mesh, shard_partition
+from libpll2_jax.trees import parse_newick
 
 import jax
 
@@ -21,7 +21,7 @@ RNG = np.random.default_rng(23)
 
 
 def build_partition(sites_alignment=1, rate_scalers=False):
-    from libpll2_tpu.io import load_fasta
+    from libpll2_jax.io import load_fasta
     rng = np.random.default_rng(23)   # same params for every build
     headers, seqs = load_fasta(LG4_FAS)
     by_label = dict(zip(headers, seqs))
@@ -40,7 +40,7 @@ def build_partition(sites_alignment=1, rate_scalers=False):
 
 def reference_logl(part, tree):
     """Same model through the step-by-step Partition path."""
-    from libpll2_tpu.trees import create_operations, traverse
+    from libpll2_jax.trees import create_operations, traverse
     trav = traverse(tree.vroot)
     ops, branches, pmat_idx = create_operations(trav)
     part.update_prob_matrices([0] * 4, pmat_idx, branches)
@@ -98,8 +98,8 @@ def test_shard_count_invariance_derivatives():
 def test_sharded_asc_bias_matches_unsharded():
     """Asc corrections involve a static slice of the synthetic columns —
     must survive GSPMD sharding unchanged."""
-    from libpll2_tpu import constants as C
-    from libpll2_tpu.trees import random_alignment as _ra, random_utree
+    from libpll2_jax import constants as C
+    from libpll2_jax.trees import random_alignment as _ra, random_utree
 
     headers, seqs = _ra(12, 156, seed=9)   # 156 + 4 asc = 160 = 8*20
     tree = random_utree(headers, seed=9)
@@ -125,8 +125,8 @@ def test_sharded_asc_bias_matches_unsharded():
 
 def test_sharded_vs_oracle():
     """Sharded fused path reproduces the reference C library end to end."""
-    from libpll2_tpu.io import load_fasta
-    from libpll2_tpu.trees import create_operations, traverse
+    from libpll2_jax.io import load_fasta
+    from libpll2_jax.trees import create_operations, traverse
     headers, seqs = load_fasta(LG4_FAS)
     by_label = dict(zip(headers, seqs))
     tree = parse_newick(open(LG4_TREE).read())
@@ -186,12 +186,12 @@ def test_newton_loop_matches_stepwise_newton():
 
 
 def test_fused_kernel_under_mesh_interpret():
-    """VERDICT item 8: the fused whole-traversal Pallas kernel runs under
+    """The fused whole-traversal Pallas kernel runs under
     a site-sharded mesh via shard_map (interpret mode on the virtual CPU
     mesh) and matches the unsharded XLA result."""
     import jax.numpy as jnp
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils import simulate_alignment
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils import simulate_alignment
 
     FREQS = [0.3, 0.2, 0.2, 0.3]
     SUBST = [1, 2, 1, 1, 2, 1]
@@ -232,9 +232,9 @@ def test_sharded_repeats_engine_invariance(n_dev):
     LOCAL class tables, one SPMD program, psum'd root logL — the value
     must be independent of the shard count and equal to the unsharded
     repeats (and dense) answer."""
-    from libpll2_tpu.parallel import ShardedRepeatsEngine
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils.simulate import simulate_alignment
+    from libpll2_jax.parallel import ShardedRepeatsEngine
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils.simulate import simulate_alignment
 
     n_taxa, sites = 14, 1024
     tree = random_utree([f"t{i}" for i in range(n_taxa)], seed=31)
@@ -275,12 +275,13 @@ def test_sharded_repeats_engine_invariance(n_dev):
 
 
 def test_sharded_repeats_pallas_interpret():
-    """The VMEM pool kernel runs per shard inside the SPMD program
-    (interpret mode on the virtual CPU mesh; fp32 like the TPU path)."""
+    """The fused kernel runs per shard inside the SPMD program over dense
+    tip codes (interpret mode on the virtual CPU mesh; fp32 like the GPU
+    path)."""
     import jax.numpy as jnp
-    from libpll2_tpu.parallel import ShardedRepeatsEngine
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils.simulate import simulate_alignment
+    from libpll2_jax.parallel import ShardedRepeatsEngine
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils.simulate import simulate_alignment
 
     n_taxa, sites, n_dev = 10, 512, 4
     tree = random_utree([f"t{i}" for i in range(n_taxa)], seed=33)
@@ -308,7 +309,7 @@ def test_sharded_repeats_pallas_interpret():
     eng = ShardedRepeatsEngine(tree, [make(d * w, (d + 1) * w)
                                       for d in range(n_dev)],
                                make_mesh(n_dev), interpret=True)
-    assert eng.use_pallas
+    assert eng.dense_fused
     np.testing.assert_allclose(eng.loglikelihood(), lk_full, rtol=2e-5)
 
 
@@ -317,9 +318,9 @@ def test_sharded_repeats_newton_and_asc():
     site sums (reference core_derivatives.c:844-848) and the Newton
     update stays replicated; Lewis asc corrections compose rank-wise
     (sum_w_local * log(1-base) adds up to the global correction)."""
-    from libpll2_tpu.parallel import ShardedRepeatsEngine
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils.simulate import simulate_alignment
+    from libpll2_jax.parallel import ShardedRepeatsEngine
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils.simulate import simulate_alignment
 
     n_taxa, sites, n_dev = 12, 768, 4
     tree = random_utree([f"t{i}" for i in range(n_taxa)], seed=37)
@@ -331,7 +332,7 @@ def test_sharded_repeats_newton_and_asc():
     by_label = dict(zip(headers, seqs))
 
     def make(lo, hi, asc=None, repeats=True):
-        from libpll2_tpu.constants import AscBias
+        from libpll2_jax.constants import AscBias
         asc = asc or AscBias.NONE
         p = Partition(tree.tip_count, tree.inner_count, 4, hi - lo, 1,
                       tree.edge_count, 4, tree.inner_count,
@@ -365,7 +366,7 @@ def test_sharded_repeats_newton_and_asc():
     np.testing.assert_allclose(d13, d13_r, atol=1e-5)
 
     # Lewis asc: per-shard corrections must sum to the global one
-    from libpll2_tpu.constants import AscBias
+    from libpll2_jax.constants import AscBias
     ref_asc = TreeEngine(make(0, sites, asc=AscBias.LEWIS), tree)
     lk_asc_r = ref_asc.loglikelihood()
     eng_asc = ShardedRepeatsEngine(
@@ -383,15 +384,15 @@ def test_sharded_repeats_newton_and_asc():
 
 @pytest.mark.parametrize("n_dev", [2, 4])
 def test_sharded_repeats_dense_fused(n_dev):
-    """Dense-fused sharded repeats (VERDICT r2 item 4): pooled storage
+    """Dense-fused sharded repeats: pooled storage
     per shard, but evaluation through the fused kernel on dense tip
     codes inside the SPMD program — logL AND the Newton d1/d2 psums must
     match the unsharded dense engine."""
     import jax.numpy as jnp
 
-    from libpll2_tpu.parallel import ShardedRepeatsEngine
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils.simulate import simulate_alignment
+    from libpll2_jax.parallel import ShardedRepeatsEngine
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils.simulate import simulate_alignment
 
     n_taxa, sites = 12, 1024
     tree = random_utree([f"t{i}" for i in range(n_taxa)], seed=37)
@@ -437,16 +438,14 @@ def test_sharded_repeats_dense_fused(n_dev):
 
 
 def test_fused_under_mesh_unaligned_sites():
-    """VERDICT r3 missing #5: real alignments whose per-shard width is
-    not lane-aligned (e.g. 1000 sites over 8 devices = 125 columns each)
-    must still run the FUSED kernel under the mesh — the shard_map body
-    pads its local block to the kernel grain internally, exactly like
-    the single-chip path. Previously these fell silently to levels
-    (25-50x). Covers DNA (plane layout, grain 1024) and AA (row
-    layout, grain 128)."""
+    """Real alignments whose per-shard width is not tile-aligned (e.g.
+    1000 sites over 8 devices = 125 columns each) must still run the
+    FUSED kernel under the mesh — the kernel pads each shard's local
+    block to its site tile internally, exactly like the single-device
+    path. Covers DNA and AA."""
     import jax.numpy as jnp
-    from libpll2_tpu.trees import random_utree
-    from libpll2_tpu.utils import simulate_alignment
+    from libpll2_jax.trees import random_utree
+    from libpll2_jax.utils import simulate_alignment
 
     for states, sites in ((4, 1000), (20, 648)):
         FREQS = np.full(states, 1.0 / states)
@@ -476,7 +475,7 @@ def test_fused_under_mesh_unaligned_sites():
         ref = TreeEngine(build(), tree, pallas=False).loglikelihood()
         part = build(mesh_n=8)
         assert part.sites_padded % (128 * 8) != 0   # the old gate failed
-        eng = TreeEngine(part, tree, pallas="interpret", mxu="highest")
+        eng = TreeEngine(part, tree, pallas="interpret")
         assert eng.use_fused and eng.fused_mesh is not None, \
             eng.execution_path
         np.testing.assert_allclose(eng.loglikelihood(), ref,
@@ -494,11 +493,11 @@ def test_sharded_repeats_topology_search():
     problem."""
     import jax.numpy as jnp
 
-    from libpll2_tpu import constants as C
-    from libpll2_tpu.parallel import ShardedRepeatsEngine
-    from libpll2_tpu.search import TreeSearch, _internal_edges
-    from libpll2_tpu.trees import moves, random_utree
-    from libpll2_tpu.utils.simulate import simulate_alignment
+    from libpll2_jax import constants as C
+    from libpll2_jax.parallel import ShardedRepeatsEngine
+    from libpll2_jax.search import TreeSearch, _internal_edges
+    from libpll2_jax.trees import moves, random_utree
+    from libpll2_jax.utils.simulate import simulate_alignment
 
     n_dev, n_taxa, sites = 4, 10, 256
     freqs = [0.3, 0.25, 0.2, 0.25]

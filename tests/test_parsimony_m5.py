@@ -6,12 +6,12 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition
-from libpll2_tpu.io import maps
-from libpll2_tpu.parsimony import FastParsimony, Parsimony
-from libpll2_tpu.trees import random_utree, traverse
-from libpll2_tpu.trees.utree import create_pars_buildops
-from libpll2_tpu.utils.simulate import simulate_alignment
+from libpll2_jax import Partition
+from libpll2_jax.io import maps
+from libpll2_jax.parsimony import FastParsimony, Parsimony
+from libpll2_jax.trees import random_utree, traverse
+from libpll2_jax.trees.utree import create_pars_buildops
+from libpll2_jax.utils.simulate import simulate_alignment
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="reference not available")
@@ -59,7 +59,7 @@ def test_sankoff_score_vs_oracle(data):
            for n in trav if not n.is_tip()]
     score_ref = lib.pll_parsimony_build(ref, oracle.build_ops(ops), len(ops))
 
-    from libpll2_tpu.parsimony import ParsBuildOp
+    from libpll2_jax.parsimony import ParsBuildOp
     score = pars.build([ParsBuildOp(*o) for o in ops])
     assert score == pytest.approx(score_ref, abs=1e-9)
     # per-buffer scores agree too

@@ -3,11 +3,11 @@ the linked Newton step uses joint derivatives (the consumers'
 multi-partition pattern)."""
 import numpy as np
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.partitioned import PartitionedEngine
-from libpll2_tpu.trees import random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.partitioned import PartitionedEngine
+from libpll2_jax.trees import random_utree
+from libpll2_jax.utils import simulate_alignment
 
 FREQS = [0.3, 0.2, 0.2, 0.3]
 SUBST = [1, 2.2, 0.8, 1.1, 2.6, 1]
@@ -57,7 +57,7 @@ def test_partitioned_joint_maximize_matches_concatenated():
     """Joint optimization with linked branches and ONE shared model must
     find the same optimum as optimizing the concatenated alignment as a
     single partition (the objectives are mathematically identical)."""
-    from libpll2_tpu.optimize import maximize_loglikelihood
+    from libpll2_jax.optimize import maximize_loglikelihood
 
     tree = random_utree([f"t{i}" for i in range(10)], seed=71)
     h1, s1 = simulate_alignment(tree, 300, FREQS, SUBST, alpha=0.9,
@@ -142,9 +142,9 @@ def test_partitioned_topology_search():
     the sum of per-partition evaluations."""
     import numpy as np
 
-    from libpll2_tpu import constants as C
-    from libpll2_tpu.search import TreeSearch, _internal_edges
-    from libpll2_tpu.trees import moves
+    from libpll2_jax import constants as C
+    from libpll2_jax.search import TreeSearch, _internal_edges
+    from libpll2_jax.trees import moves
 
     tree = random_utree([f"t{i}" for i in range(10)], seed=77)
     parts = _parts(tree, n_parts=2)
@@ -168,14 +168,14 @@ def test_partitioned_topology_search():
 
 
 def test_partitioned_engine_on_mesh():
-    """PartitionedEngine over a device mesh (VERDICT r3 missing #2):
+    """PartitionedEngine over a device mesh:
     every partition's site axis sharded over 8 virtual devices
     (PartitionedEngine.shard), per-partition psums, host-side
     cross-partition sums. logL and the joint linked Newton step must be
     shard-count invariant; widths include a 520-site partition whose
     65-column shards are NOT lane-aligned (internal kernel padding)."""
     import jax.numpy as jnp
-    from libpll2_tpu.parallel import make_mesh
+    from libpll2_jax.parallel import make_mesh
 
     tree = random_utree([f"t{i}" for i in range(12)], seed=3)
     cfgs = [(1000, [1, 2.2, 0.8, 1.1, 2.6, 1]),
@@ -224,7 +224,7 @@ def test_partitioned_maximize_fused_routing():
     fixed branches) and rejects 'branches' with a clear error."""
     import jax.numpy as jnp
     import pytest
-    from libpll2_tpu import constants as C
+    from libpll2_jax import constants as C
 
     tree = random_utree([f"t{i}" for i in range(10)], seed=61)
 
@@ -264,9 +264,9 @@ def test_partitioned_streamed_rounds_match_batched():
     program per partition signature); the rounds must accept the same
     moves at the same summed logL as the batched full-traversal
     partitioned rounds."""
-    from libpll2_tpu import constants as C
-    from libpll2_tpu.search import TreeSearch, _internal_edges
-    from libpll2_tpu.trees import moves
+    from libpll2_jax import constants as C
+    from libpll2_jax.search import TreeSearch, _internal_edges
+    from libpll2_jax.trees import moves
 
     def perturbed():
         tree = random_utree([f"t{i}" for i in range(10)], seed=77)
@@ -319,9 +319,9 @@ def test_partitioned_streamed_mixed_signatures():
     has no shape restriction, stepwise.c:337-346) stream via one
     schedule per distinct signature built from the same deterministic
     enumeration; round parity with the batched rounds holds."""
-    from libpll2_tpu import constants as C
-    from libpll2_tpu.search import TreeSearch, _internal_edges
-    from libpll2_tpu.trees import moves
+    from libpll2_jax import constants as C
+    from libpll2_jax.search import TreeSearch, _internal_edges
+    from libpll2_jax.trees import moves
 
     def build(tree, k, extra_pm=0, extra_sc=0):
         headers, seqs = simulate_alignment(

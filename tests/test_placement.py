@@ -3,11 +3,11 @@ attachment edge, with all candidate edges scored in one dispatch."""
 import numpy as np
 import pytest
 
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.placement import EdgePlacer
-from libpll2_tpu.trees import parse_newick, random_utree, export_newick
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.placement import EdgePlacer
+from libpll2_jax.trees import parse_newick, random_utree, export_newick
+from libpll2_jax.utils import simulate_alignment
 
 FREQS = [0.3, 0.2, 0.2, 0.3]
 SUBST = [1, 2.5, 0.8, 1.1, 2.5, 1]
@@ -16,7 +16,7 @@ SUBST = [1, 2.5, 0.8, 1.1, 2.5, 1]
 def _prune_tip(tree, label):
     """prune_tip, returning both joined neighbors (the true attachment
     edge of the removed taxon connects the two clades)."""
-    from libpll2_tpu.trees import prune_tip
+    from libpll2_jax.trees import prune_tip
     node = prune_tip(tree, label)
     return node, node.back
 
@@ -154,7 +154,7 @@ def test_jplace_export():
     through json."""
     import json
     import re
-    from libpll2_tpu.placement import to_jplace
+    from libpll2_jax.placement import to_jplace
 
     full = random_utree([f"t{i}" for i in range(8)], seed=3)
     headers, seqs = simulate_alignment(full, 256, FREQS, SUBST,
@@ -231,7 +231,7 @@ def test_place_stream_scaling_events():
 
 
 def test_place_stream_aa():
-    from libpll2_tpu.models import load_aa_model
+    from libpll2_jax.models import load_aa_model
 
     full = random_utree([f"t{i}" for i in range(10)], seed=47)
     headers, seqs = simulate_alignment(full, 320, [1 / 20] * 20,
@@ -243,7 +243,7 @@ def test_place_stream_aa():
     placer = EdgePlacer(ref_tree, ref_by, states=20)
     load_aa_model(placer.partition, "lg")
     placer.partition.set_category_rates(
-        __import__("libpll2_tpu").compute_gamma_cats(1.0, 4))
+        __import__("libpll2_jax").compute_gamma_cats(1.0, 4))
     placer._engine = None
     placer._stream = None
     single = sorted(placer.place(by["t4"]), key=lambda r: r["edge"])
@@ -256,7 +256,7 @@ def test_place_stream_aa():
 def test_place_stream_rejects_pinv():
     import pytest as _pytest
 
-    from libpll2_tpu import constants as C
+    from libpll2_jax import constants as C
 
     full = random_utree([f"t{i}" for i in range(8)], seed=51)
     headers, seqs = simulate_alignment(full, 256, FREQS, SUBST,
@@ -274,7 +274,7 @@ def test_place_stream_jplace():
     """place_stream rows feed to_jplace unchanged."""
     import json
 
-    from libpll2_tpu.placement import to_jplace
+    from libpll2_jax.placement import to_jplace
 
     full = random_utree([f"t{i}" for i in range(8)], seed=3)
     headers, seqs = simulate_alignment(full, 256, FREQS, SUBST,
@@ -322,7 +322,7 @@ def test_to_jplace_mixed_length_rows():
     counts (review finding, round 5)."""
     import json
 
-    from libpll2_tpu.placement import to_jplace
+    from libpll2_jax.placement import to_jplace
 
     tree = random_utree([f"t{i}" for i in range(8)], seed=4)
     headers, seqs = simulate_alignment(tree, 128, [0.25] * 4,

@@ -6,10 +6,10 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu.io import maps
-from libpll2_tpu.parsimony import Parsimony, ParsBuildOp
-from libpll2_tpu.trees import parse_newick_rooted, rtree
-from libpll2_tpu.trees.rtree import create_pars_buildops, create_pars_recops
+from libpll2_jax.io import maps
+from libpll2_jax.parsimony import Parsimony, ParsBuildOp
+from libpll2_jax.trees import parse_newick_rooted, rtree
+from libpll2_jax.trees.rtree import create_pars_buildops, create_pars_recops
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="reference not available")
@@ -25,7 +25,7 @@ def test_sankoff_reconstruct_matches_oracle():
     sites = len(next(iter(SEQS.values())))
     cost = (np.ones((4, 4)) - np.eye(4)).ravel()
 
-    from libpll2_tpu import constants as C
+    from libpll2_jax import constants as C
     trav_post = rtree.traverse(tree.root, order=C.TRAVERSE_POSTORDER)
     trav_pre = rtree.traverse(tree.root, order=C.TRAVERSE_PREORDER)
     build_ops = create_pars_buildops(trav_post)

@@ -4,12 +4,12 @@ pattern, test/src/partial-traversal.c)."""
 import numpy as np
 import pytest
 
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.search import TreeSearch, _internal_edges
-from libpll2_tpu.trees import moves, random_utree
-from libpll2_tpu.utils import simulate_alignment
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.search import TreeSearch, _internal_edges
+from libpll2_jax.trees import moves, random_utree
+from libpll2_jax.utils import simulate_alignment
 
 N_TAXA, N_SITES = 12, 500
 
@@ -69,9 +69,9 @@ def test_batched_nni_matches_sequential():
 
 
 def test_evaluate_topologies_agrees_with_single_eval():
-    from libpll2_tpu import TreeEngine
-    from libpll2_tpu.trees import create_operations
-    from libpll2_tpu.trees.utree import traverse
+    from libpll2_jax import TreeEngine
+    from libpll2_jax.trees import create_operations
+    from libpll2_jax.trees.utree import traverse
 
     part, tree = _setup(perturb=1)
     eng = TreeEngine(part, tree, level_schedule=False, pallas=False)
@@ -106,7 +106,7 @@ def test_spr_radius_targets_valid():
     """Radius-limited enumeration: every target is a valid regraft (not
     in the pruned subtree, not the identity neighborhood) and a subset
     of the full filtered target set."""
-    from libpll2_tpu.search import _all_edges, _radius_targets
+    from libpll2_jax.search import _all_edges, _radius_targets
 
     tree = random_utree([f"t{i}" for i in range(24)], seed=7)
     for p in _internal_edges(tree)[:8]:
@@ -187,8 +187,8 @@ def test_packed_candidates_match_object_pipeline():
     fused path."""
     import jax.numpy as jnp
 
-    from libpll2_tpu import TreeEngine
-    from libpll2_tpu.trees import create_operations, traverse
+    from libpll2_jax import TreeEngine
+    from libpll2_jax.trees import create_operations, traverse
 
     tree32 = random_utree([f"t{i}" for i in range(N_TAXA)], seed=33)
     headers, seqs = simulate_alignment(tree32, N_SITES, [0.25] * 4,

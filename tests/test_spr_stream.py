@@ -4,20 +4,20 @@ Every candidate's streamed logL — composed from directional CLVs, the
 corrected remaining-tree CLVs and the half-branch regraft pmatrices —
 must equal a from-scratch full-tree evaluation of the APPLIED topology
 (reference semantics: moves.spr's relink at utree_moves.c:119-255, edge
-logL at likelihood.c:586). fp64 here; the fp32 TPU path is covered by
-the round-parity test + the on-chip gate.
+logL at likelihood.c:586). fp64 here; the fp32 device path is covered by
+the round-parity test + the on-device parity gate.
 """
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from libpll2_tpu import Partition, TreeEngine, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.ops import spr_stream
-from libpll2_tpu.search import TreeSearch, _internal_edges
-from libpll2_tpu.trees import moves, random_alignment, random_utree
+from libpll2_jax import Partition, TreeEngine, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.ops import spr_stream
+from libpll2_jax.search import TreeSearch, _internal_edges
+from libpll2_jax.trees import moves, random_alignment, random_utree
 
 
 def _problem(n_taxa, n_sites, seed=3, states=4, alpha=0.8, pinv=0.0,
@@ -78,7 +78,7 @@ def _asc_problem(n_taxa, n_sites, asc, seed=3):
 
 
 def _stream_all(part, tree, eng, radius, chunk=64):
-    from libpll2_tpu.search import TreeSearch as _TS
+    from libpll2_jax.search import TreeSearch as _TS
     groups = [(pr, spr_stream.enumerate_targets(pr, radius))
               for pr in list(_internal_edges(tree))]
     sched = spr_stream.build_spr_stream(
@@ -234,7 +234,7 @@ def test_nni_streamed_round_matches_batched_repeats():
 
 
 def test_streamed_candidate_set_matches_radius_targets():
-    from libpll2_tpu.search import _radius_targets
+    from libpll2_jax.search import _radius_targets
     part, tree = _problem(16, 32, seed=9)
     for pr in _internal_edges(tree):
         want = [id(t) for t in _radius_targets(pr, 4)]
@@ -322,8 +322,8 @@ def test_streamed_rounds_no_recompile_at_established_shapes():
     import logging
 
     import jax as _jax
-    from libpll2_tpu.trees import moves as _mv
-    from libpll2_tpu import constants as _C
+    from libpll2_jax.trees import moves as _mv
+    from libpll2_jax import constants as _C
 
     part, tree = _problem(20, 96, seed=21)
     s = TreeSearch(part, tree)
@@ -371,7 +371,7 @@ def test_streamed_rounds_under_mesh_match_single_device():
     one logL psum; rounds on an 8-device mesh must accept the same
     moves at the same logL as the single-device rounds."""
     import jax
-    from libpll2_tpu.parallel import make_mesh, shard_partition
+    from libpll2_jax.parallel import make_mesh, shard_partition
 
     part, tree = _problem(16, 128, seed=23, sites_alignment=8)
     mesh = make_mesh(devices=jax.devices("cpu")[:8])
@@ -426,13 +426,13 @@ def test_streamed_round_fallback_on_asc():
 
 def test_native_schedule_matches_python_builder():
     """The native whole-round schedule builder (pllnative.cpp
-    pll_tpu_spr_stream_{enum,build}) must reproduce the Python
+    pll_nat_spr_stream_{enum,build}) must reproduce the Python
     build_spr_stream BIT-EXACTLY — tables, waves, candidate rows and
     order, subsample rng consumption — across full and subsampled
     rounds. The streamed-round tests above already exercise the native
     path end to end (search prefers it); this pins the equivalence."""
-    from libpll2_tpu import native
-    from libpll2_tpu.search import _internal_edges
+    from libpll2_jax import native
+    from libpll2_jax.search import _internal_edges
 
     if native.load() is None:
         pytest.skip("native library unavailable")

@@ -7,13 +7,13 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition
-from libpll2_tpu.io import maps
-from libpll2_tpu.parsimony import FastParsimony
-from libpll2_tpu.parsimony.stepwise import fastparsimony_stepwise
-from libpll2_tpu.trees import export_newick, random_utree
-from libpll2_tpu.utils.rng import GlibcRandom, create_shuffled
-from libpll2_tpu.utils.simulate import simulate_alignment
+from libpll2_jax import Partition
+from libpll2_jax.io import maps
+from libpll2_jax.parsimony import FastParsimony
+from libpll2_jax.parsimony.stepwise import fastparsimony_stepwise
+from libpll2_jax.trees import export_newick, random_utree
+from libpll2_jax.utils.rng import GlibcRandom, create_shuffled
+from libpll2_jax.utils.simulate import simulate_alignment
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
                                 reason="reference not available")
@@ -109,7 +109,7 @@ def test_stepwise_seed_zero_identity_order():
 
 
 def test_stepwise_native_matches_jax_path():
-    """The host-native engine (native/pllnative.cpp pll_tpu_stepwise) and
+    """The host-native engine (native/pllnative.cpp pll_nat_stepwise) and
     the JAX loop produce bit-identical trees and costs — including a
     multi-partition build (reference stepwise.c:337-346 score summing)."""
     headers, seqs = _data(seed=17)

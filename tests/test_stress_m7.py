@@ -1,5 +1,4 @@
-"""Reference stress scenarios ported into the validation matrix
-(VERDICT r1 item 7):
+"""Reference stress scenarios ported into the validation matrix:
 
   * scaling.c — a 2000-taxon tree at extreme Gamma shapes across
     DNA / AA / odd-5 alphabets, per-site vs per-rate scalers, logL +
@@ -17,10 +16,10 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu.io import maps
-from libpll2_tpu.models import aa_data
-from libpll2_tpu.trees import (create_operations, parse_newick_rooted,
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax.io import maps
+from libpll2_jax.models import aa_data
+from libpll2_jax.trees import (create_operations, parse_newick_rooted,
                                random_utree, rtree, traverse)
 
 pytestmark = pytest.mark.skipif(not oracle.available(),
@@ -59,7 +58,7 @@ def big_tree():
 
 
 def _build_pair(tree, datatype, rate_scalers):
-    """(oracle partition, tpu partition) with scaling.c data/models."""
+    """(oracle partition, library partition) with scaling.c data/models."""
     if datatype == "nt":
         states, alphabet = 4, NT_ALPHABET
         freqs, subst = NT_FREQS, NT_SUBST
@@ -162,7 +161,7 @@ def test_partial_traversal_updates_only_invalid():
     n = 16
     tree = random_utree([f"t{i}" for i in range(n)], seed=9)
     rng = np.random.default_rng(9)
-    from libpll2_tpu.utils.simulate import simulate_alignment
+    from libpll2_jax.utils.simulate import simulate_alignment
     headers, seqs = simulate_alignment(tree, 200, [0.25] * 4,
                                        [1, 2, 1, 1, 2, 1], alpha=0.8,
                                        seed=9)

@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Operation, Partition, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import load_fasta, maps
-from libpll2_tpu.ops import derivatives as ops_deriv
-from libpll2_tpu.trees import (create_operations, export_newick, moves,
+from libpll2_jax import Operation, Partition, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import load_fasta, maps
+from libpll2_jax.ops import derivatives as ops_deriv
+from libpll2_jax.trees import (create_operations, export_newick, moves,
                                parse_newick, parse_newick_rooted, rtree,
                                traverse)
 
@@ -314,10 +314,10 @@ def test_rf_distance():
     """RF properties: identity 0; one NNI move changes exactly one
     bipartition (RF 2); disjoint caterpillar vs balanced-ish trees are
     far; the normalized metric is in [0, 1]."""
-    from libpll2_tpu import constants as C
-    from libpll2_tpu.trees import random_utree, rf_distance
-    from libpll2_tpu.trees.utils import utree_clone
-    from libpll2_tpu.trees import moves
+    from libpll2_jax import constants as C
+    from libpll2_jax.trees import random_utree, rf_distance
+    from libpll2_jax.trees.utils import utree_clone
+    from libpll2_jax.trees import moves
 
     labels = [f"t{i}" for i in range(12)]
     t1 = random_utree(labels, seed=3)
@@ -344,11 +344,11 @@ def test_consensus_and_support():
     bipartition counting: identical replicates give support 1.0 on every
     split; one divergent replicate lowers exactly the splits it breaks;
     >0.5 splits are pairwise compatible by construction."""
-    from libpll2_tpu import constants as C
-    from libpll2_tpu.trees import (edge_support, majority_rule_consensus,
+    from libpll2_jax import constants as C
+    from libpll2_jax.trees import (edge_support, majority_rule_consensus,
                                    random_utree, tree_bipartitions)
-    from libpll2_tpu.trees import moves
-    from libpll2_tpu.trees.utils import utree_clone
+    from libpll2_jax.trees import moves
+    from libpll2_jax.trees.utils import utree_clone
 
     labels = [f"t{i}" for i in range(10)]
     base = random_utree(labels, seed=13)

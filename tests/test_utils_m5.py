@@ -6,15 +6,15 @@ import numpy as np
 import pytest
 
 import oracle
-from libpll2_tpu import Partition, compute_gamma_cats
-from libpll2_tpu import constants as C
-from libpll2_tpu.io import maps
-from libpll2_tpu.trees import (check_integrity, create_operations,
+from libpll2_jax import Partition, compute_gamma_cats
+from libpll2_jax import constants as C
+from libpll2_jax.io import maps
+from libpll2_jax.trees import (check_integrity, create_operations,
                                export_newick, export_svg, graph_clone,
                                parse_newick, parse_newick_rooted,
                                random_utree, rtree_unroot, traverse,
                                utree_clone)
-from libpll2_tpu.utils import (dump, show_clv, show_pmatrix,
+from libpll2_jax.utils import (dump, show_clv, show_pmatrix,
                                show_tree_ascii, simulate_alignment)
 
 NEWICK = "((t0:0.1,t1:0.2):0.05,(t2:0.3,(t3:0.1,t4:0.15):0.2):0.1,t5:0.4);"
@@ -139,7 +139,7 @@ def test_set_tip_clv_partial_likelihood_input():
     """Direct tip CLV input (uncertain tips / partial likelihoods),
     pll_set_tip_clv (pll.c:1063) vs oracle."""
     import ctypes as ct
-    from libpll2_tpu.trees import create_operations, traverse
+    from libpll2_jax.trees import create_operations, traverse
 
     tree = random_utree([f"t{i}" for i in range(6)], seed=19)
     sites, cats = 40, 4

@@ -2,13 +2,13 @@
 
     python tools/build_native.py
 
-Equivalent to the lazy first-use build in libpll2_tpu/native/__init__.py.
+Equivalent to the lazy first-use build in libpll2_jax/native/__init__.py.
 """
 import sys
 
 sys.path.insert(0, ".")
 
-from libpll2_tpu import native  # noqa: E402
+from libpll2_jax import native  # noqa: E402
 
 if __name__ == "__main__":
     ok = native.build()

@@ -1,4 +1,4 @@
-"""Regenerate libpll2_tpu/models/aa_data.py.
+"""Regenerate libpll2_jax/models/aa_data.py.
 
 Dumps the published empirical AA replacement-model constants (exact doubles)
 through the test oracle's compiled reference library, so our tables are
@@ -100,5 +100,5 @@ for name in ("lg4m", "lg4x"):
         out.append("  ],")
     out.append("])")
     out.append("")
-open("libpll2_tpu/models/aa_data.py", "w").write("\n".join(out))
-print("written libpll2_tpu/models/aa_data.py")
+open("libpll2_jax/models/aa_data.py", "w").write("\n".join(out))
+print("written libpll2_jax/models/aa_data.py")

@@ -5,7 +5,7 @@ production eval loop (pmatrix + kernel + edge logL), both via the
 two-trip-count differencing method bench.py uses, and reports the gap as
 the epilogue cost. This methodology found the two epilogue pathologies
 fixed in round 2 (the whole-buffer scatter per loop iteration and the
-per-lane-serialized +I gather), so it stays as a diagnostic: run it
+serialized +I gather), so it stays as a diagnostic: run it
 whenever eval time and kernel-only time diverge.
 
 Usage: python tools/profile_fused.py   (flagship config; BENCH_* env
@@ -20,12 +20,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), "..", ".jax_cache"))
+from libpll2_jax.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 import bench
-from libpll2_tpu import TreeEngine
-from libpll2_tpu.ops import pallas_fused as ops_fused
+from libpll2_jax import TreeEngine
+from libpll2_jax.ops import pallas_fused as ops_fused
 
 part, tree, _ = bench.build_problem()
 eng = TreeEngine(part, tree)
@@ -37,7 +38,7 @@ assert eng.use_fused
 lk = eng.loglikelihood()
 print(f"logL={lk:.4f}", file=sys.stderr)
 
-table, codes = eng.ops
+table, codes, _ = eng.ops
 pm = jnp.asarray(part.pmatrix, jnp.float32)
 R, S = part.rate_cats, part.states
 thr, fac = part.scale_threshold, part.scale_factor
